@@ -1,4 +1,5 @@
-"""cusdr_tpu — TPU-native multi-constellation GNSS software receiver.
+"""cusdr_tpu — multi-constellation GNSS software receiver for JAX
+accelerators (the GPU path is the measured one).
 
 A ground-up JAX/XLA/Pallas re-design with the capabilities of the
 CU-SDR-Collection MATLAB receivers (GPS L1CA/L2C/L5C, Galileo E1C/E5a/E5b,

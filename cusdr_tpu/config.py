@@ -35,7 +35,7 @@ class ReceiverConfig:
     """All knobs for one signal's receiver chain.
 
     Field-by-field mirror of the reference ``initSettings.m`` structs, plus
-    TPU-build extras (superblock sizing, dtypes).
+    accelerator-build extras (superblock sizing, dtypes, correlator path).
     """
 
     # --- identity -----------------------------------------------------------
@@ -127,12 +127,14 @@ class ReceiverConfig:
     # --- B1C wideband (BDS/B1C/initSettings.m:59 FEBW) ------------------------
     front_end_bw: float = 27e6          # front-end bandwidth [Hz]
 
-    # --- TPU-build extras -----------------------------------------------------
+    # --- accelerator-build extras ---------------------------------------------
     superblock_ms: int = 1000           # samples staged to device per scan
     track_block_pad: int = 8            # extra samples per epoch block
-    use_pallas: Optional[bool] = None   # fused Pallas correlator bank;
-                                        # None = auto (on for TPU backends,
-                                        # XLA fallback elsewhere)
+    use_pallas: Optional[bool] = None   # fused GPU correlator kernel;
+                                        # None = auto (the kernel on GPU
+                                        # backends, the XLA epoch
+                                        # elsewhere); True off the GPU is
+                                        # an error
     time_blocks: int = 0                # >1: time-parallel tracking over this
                                         # many concurrent blocks (parallel/
                                         # timeblocks.py); 0/1 = sequential

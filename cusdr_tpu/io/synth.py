@@ -79,81 +79,147 @@ def synthesize_if(cfg, sig: SignalDef, svs: Sequence[SynthSV],
     n_total = int(round(num_ms * fs * 1e-3))
     rng = np.random.default_rng(seed)
     out = np.empty(n_total, dtype=np.complex64)
-
-    nav_symbol_chips = sig.nav_symbol_ms * 1e-3 * sig.chip_rate_hz
-
     chunk = int(round(chunk_ms * fs * 1e-3))
     for start in range(0, n_total, chunk):
         stop = min(start + chunk, n_total)
-        n = np.arange(start, stop, dtype=np.float64)
-        t = n / fs
-        acc = (rng.standard_normal(stop - start)
-               + 1j * rng.standard_normal(stop - start)) * noise_std
-        acc = acc.astype(np.complex64)
-        for sv in svs:
-            amp = np.sqrt(10 ** (sv.cn0_dbhz / 10.0) * 2 * noise_std ** 2
-                          / fs)
-            # code Doppler: chip rate scales with carrier Doppler (+rate)
-            code_freq = sig.chip_rate_hz * (
-                1.0 + sv.doppler_hz / sig.carrier_freq_hz)
-            chip_phase = (n - sv.code_phase) * (code_freq / fs)
-            if sv.doppler_rate != 0.0:
-                chip_phase = chip_phase + (0.5 * sig.chip_rate_hz
-                                           * sv.doppler_rate
-                                           / sig.carrier_freq_hz) * t * t
-            # clamp the pre-start region to chip 0 so it holds the first chip
-            chip_phase = np.maximum(chip_phase, 0.0)
+        out[start:stop] = _synth_range(cfg, sig, svs, start, stop,
+                                       noise_std, rng, pilot_power_frac)
+    return out
 
-            carrier_hz = cfg.if_freq + sv.doppler_hz
-            if sig.fdma:
-                carrier_hz += sig.fdma_spacing_hz * sv.fdma_channel
-            theta = (2 * np.pi * carrier_hz) * t + sv.carrier_phase
-            if sv.doppler_rate != 0.0:
-                theta = theta + (np.pi * sv.doppler_rate) * t * t
-            theta32 = np.mod(theta, 2 * np.pi).astype(np.float32)
-            carrier = (np.cos(theta32)
-                       + 1j * np.sin(theta32)).astype(np.complex64)
 
-            data_elems = sig.data_code(sv.prn)
-            data_vals = _component(sig, sv, chip_phase, data_elems,
-                                   sig.data_secondary, nav_symbol_chips)
-            if sig.pilot_code is not None:
-                a_d = amp * np.sqrt(1.0 - pilot_power_frac)
-                a_p = amp * np.sqrt(pilot_power_frac)
-                psec = (sig.pilot_secondary(sv.prn)
-                        if sig.pilot_secondary is not None else None)
-                pilot_sv = SynthSV(**{**sv.__dict__, "nav_bits": None})
-                pilot_vals = _component(sig, pilot_sv, chip_phase,
-                                        sig.pilot_code(sv.prn), psec,
-                                        nav_symbol_chips,
-                                        periods=max(
-                                            sig.pilot_phase_hypotheses, 1))
-                if sig.pilot_code_wb is not None:
-                    # full QMBOC (B1C): of 44 power units — data BOC(1,1)
-                    # 11 on +I, pilot BOC(1,1) 29 on +Q, pilot BOC(6,1)
-                    # 4 at j^pilot_wb_rot (ICD split; the reference's
-                    # 11/29/40 acquisition weights exclude the 4,
-                    # acquisition.m:213-214, WB_tracking.m:364-369)
-                    wb_vals = _component(sig, pilot_sv, chip_phase,
-                                         sig.pilot_code_wb(sv.prn), psec,
-                                         nav_symbol_chips)
-                    rot = 1j ** sig.pilot_wb_rot
-                    base = (amp * np.sqrt(11.0 / 44.0) * data_vals
-                            + 1j * amp * np.sqrt(29.0 / 44.0) * pilot_vals
-                            + rot * amp * np.sqrt(4.0 / 44.0) * wb_vals)
-                elif sig.pilot_in_phase:
-                    # time-multiplexed pilot on the data carrier: the RZ
-                    # chip slots interleave CM/CL on one phase (L2C TMRZ,
-                    # generateL2Ccode.m chip multiplex)
-                    base = a_d * data_vals + a_p * pilot_vals
-                else:
-                    base = (a_d * data_vals + 1j * a_p * pilot_vals)
+def _synth_range(cfg, sig: SignalDef, svs: Sequence[SynthSV], start: int,
+                 stop: int, noise_std: float, rng,
+                 pilot_power_frac: float) -> np.ndarray:
+    """Samples [start, stop) of the IF record (complex64); the noise is
+    drawn from ``rng``."""
+    fs = cfg.sampling_freq
+    nav_symbol_chips = sig.nav_symbol_ms * 1e-3 * sig.chip_rate_hz
+    n = np.arange(start, stop, dtype=np.float64)
+    t = n / fs
+    acc = (rng.standard_normal(stop - start)
+           + 1j * rng.standard_normal(stop - start)) * noise_std
+    acc = acc.astype(np.complex64)
+    for sv in svs:
+        amp = np.sqrt(10 ** (sv.cn0_dbhz / 10.0) * 2 * noise_std ** 2
+                      / fs)
+        # code Doppler: chip rate scales with carrier Doppler (+rate)
+        code_freq = sig.chip_rate_hz * (
+            1.0 + sv.doppler_hz / sig.carrier_freq_hz)
+        chip_phase = (n - sv.code_phase) * (code_freq / fs)
+        if sv.doppler_rate != 0.0:
+            chip_phase = chip_phase + (0.5 * sig.chip_rate_hz
+                                       * sv.doppler_rate
+                                       / sig.carrier_freq_hz) * t * t
+        # clamp the pre-start region to chip 0 so it holds the first chip
+        chip_phase = np.maximum(chip_phase, 0.0)
+
+        carrier_hz = cfg.if_freq + sv.doppler_hz
+        if sig.fdma:
+            carrier_hz += sig.fdma_spacing_hz * sv.fdma_channel
+        theta = (2 * np.pi * carrier_hz) * t + sv.carrier_phase
+        if sv.doppler_rate != 0.0:
+            theta = theta + (np.pi * sv.doppler_rate) * t * t
+        theta32 = np.mod(theta, 2 * np.pi).astype(np.float32)
+        carrier = (np.cos(theta32)
+                   + 1j * np.sin(theta32)).astype(np.complex64)
+
+        data_elems = sig.data_code(sv.prn)
+        data_vals = _component(sig, sv, chip_phase, data_elems,
+                               sig.data_secondary, nav_symbol_chips)
+        if sig.pilot_code is not None:
+            a_d = amp * np.sqrt(1.0 - pilot_power_frac)
+            a_p = amp * np.sqrt(pilot_power_frac)
+            psec = (sig.pilot_secondary(sv.prn)
+                    if sig.pilot_secondary is not None else None)
+            pilot_sv = SynthSV(**{**sv.__dict__, "nav_bits": None})
+            pilot_vals = _component(sig, pilot_sv, chip_phase,
+                                    sig.pilot_code(sv.prn), psec,
+                                    nav_symbol_chips,
+                                    periods=max(
+                                        sig.pilot_phase_hypotheses, 1))
+            if sig.pilot_code_wb is not None:
+                # full QMBOC (B1C): of 44 power units — data BOC(1,1)
+                # 11 on +I, pilot BOC(1,1) 29 on +Q, pilot BOC(6,1)
+                # 4 at j^pilot_wb_rot (ICD split; the reference's
+                # 11/29/40 acquisition weights exclude the 4,
+                # acquisition.m:213-214, WB_tracking.m:364-369)
+                wb_vals = _component(sig, pilot_sv, chip_phase,
+                                     sig.pilot_code_wb(sv.prn), psec,
+                                     nav_symbol_chips)
+                rot = 1j ** sig.pilot_wb_rot
+                base = (amp * np.sqrt(11.0 / 44.0) * data_vals
+                        + 1j * amp * np.sqrt(29.0 / 44.0) * pilot_vals
+                        + rot * amp * np.sqrt(4.0 / 44.0) * wb_vals)
+            elif sig.pilot_in_phase:
+                # time-multiplexed pilot on the data carrier: the RZ
+                # chip slots interleave CM/CL on one phase (L2C TMRZ,
+                # generateL2Ccode.m chip multiplex)
+                base = a_d * data_vals + a_p * pilot_vals
             else:
-                base = amp * data_vals
-            if sv.stop_ms is not None:
-                base = base * (t < sv.stop_ms * 1e-3)
-            acc = acc + (base * carrier).astype(np.complex64)
-        out[start:stop] = acc
+                base = (a_d * data_vals + 1j * a_p * pilot_vals)
+        else:
+            base = amp * data_vals
+        if sv.stop_ms is not None:
+            base = base * (t < sv.stop_ms * 1e-3)
+        acc = acc + (base * carrier).astype(np.complex64)
+    return acc
+
+
+def _synth_chunk_int8(job) -> np.ndarray:
+    """One chunk of synthesize_iq_int8 (runs in a worker process)."""
+    cfg, signal, svs, start, stop, noise_std, seed, k, frac = job
+    from ..signals.defs import get_signal
+    rng = np.random.default_rng([seed, k])
+    return quantize_iq_int8(_synth_range(cfg, get_signal(signal), svs,
+                                         start, stop, noise_std, rng,
+                                         frac))
+
+
+def synthesize_iq_int8(cfg, sig: SignalDef, svs: Sequence[SynthSV],
+                       num_ms: int, noise_std: float = 4.0, seed: int = 1,
+                       pilot_power_frac: float = 0.5, chunk_ms: int = 200,
+                       workers: int = 1) -> np.ndarray:
+    """Interleaved int8 I/Q record (the schar file layout) of the signal
+    model of ``synthesize_if``, built chunk by chunk in ``workers``
+    processes for records of many seconds.
+
+    Chunk k draws its noise from its own stream seeded by (seed, k), so
+    the record depends on the seed and the chunk length, never on the
+    number of workers; its noise realisation differs from
+    ``synthesize_if``'s single stream.  Worker processes compute with
+    numpy only."""
+    fs = cfg.sampling_freq
+    n_total = int(round(num_ms * fs * 1e-3))
+    chunk = int(round(chunk_ms * fs * 1e-3))
+    jobs = [(cfg, sig.name, list(svs), s, min(s + chunk, n_total),
+             noise_std, seed, k, pilot_power_frac)
+            for k, s in enumerate(range(0, n_total, chunk))]
+    out = np.empty(2 * n_total, np.int8)
+
+    def fill(parts):
+        for job, part in zip(jobs, parts):
+            out[2 * job[3]:2 * job[4]] = part
+
+    if workers <= 1:
+        fill(map(_synth_chunk_int8, jobs))
+        return out
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+    # the workers import the package (and so JAX) but must never claim
+    # the accelerator the parent process holds
+    saved = os.environ.get("JAX_PLATFORMS")
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    try:
+        with ProcessPoolExecutor(
+                workers,
+                mp_context=multiprocessing.get_context("spawn")) as ex:
+            fill(ex.map(_synth_chunk_int8, jobs))
+    finally:
+        if saved is None:
+            del os.environ["JAX_PLATFORMS"]
+        else:
+            os.environ["JAX_PLATFORMS"] = saved
     return out
 
 

@@ -1,3 +1,1 @@
-"""TPU compute ops: matmul-FFT, Pallas kernels."""
-
-from .matmul_fft import fft_mm, ifft_mm, use_matmul_fft  # noqa: F401
+"""Accelerator kernels: the fused GPU epoch correlator (correlator.py)."""

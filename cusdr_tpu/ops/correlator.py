@@ -1,30 +1,28 @@
-"""Fused Pallas TPU epoch-correlator kernel.
+"""Fused epoch-correlator kernel for NVIDIA GPUs (Pallas, Triton route).
 
-One kernel evaluates, for a bank of channels, everything the tracking
-epoch does per sample — int8→f32 conversion, factorized-exponential
-carrier synthesis, sub-sample replica interpolation (static slices),
-edge masking — and reduces to the E/P/L (± pilot) correlator sums.  This
-replaces ~10 separate XLA fusions per scan step whose intermediates each
-round-trip VMEM/HBM; measured ~0.17 ns per channel-sample on TPU v5e.
+One program per (channel row, sample chunk) reads its channel's sample
+window straight from the record and its replica windows straight from
+the replica tables, at dynamic offsets.  A loop inside the program walks
+the chunk in ``TILE``-sample tiles: int → f32 conversion, carrier
+wipe-off, sub-sample replica interpolation of the E/P/L taps, valid-
+sample masking, and accumulation of the correlator sums in registers.
+Nothing per-sample is written back to device memory; only the int8
+samples and replica bytes are read.
 
-Two entry points:
+Each program writes its partial sums for its chunk; a second pass (XLA)
+adds the chunks.  No atomics, so results are deterministic.
 
-* ``correlate_bank`` — operands pre-staged as [C, blk_pad] VMEM blocks
-  (vmappable; used by the sharded time-block path).
-* ``correlate_bank_hbm`` — the sample record and replica tables stay in
-  HBM; per-channel windows are DMA'd into VMEM scratch inside the kernel
-  from scalar-prefetched offsets, double-buffered across the channel
-  grid.  This removes the XLA gather/materialization of the windows
-  (measured slower than the whole kernel) and all of its HBM round-trip.
+The carrier is factorised per tile as e^{-j2π(φ_t + f·l)} = u_t · v_l
+with l the lane within the tile: the caller evaluates u (one value per
+tile) and v (one ``TILE`` vector per channel) from float64 phases, so
+every per-sample carrier value is accurate to f32 rounding whatever the
+record length or IF, and the loop body holds no transcendental.
 
 Reference semantics: the six correlator sums of
-GPS/GPS_L1CA/include/tracking.m:280-300 (carrier wipe-off + dot products)
-plus the π/2-rotated pilot correlators of the data+pilot receivers
-(GPS_L5C/include/tracking.m:334-345).
-
-Channel-bank layout: all arrays are [C, ...] with C a multiple of 8
-(the f32 sublane tile); the kernel grids over 8-channel chunks so VMEM
-stays bounded.
+GPS/GPS_L1CA/include/tracking.m:280-300 (carrier wipe-off + dot
+products), plus the raw (unrotated) pilot correlators of the data+pilot
+receivers (GPS_L5C/include/tracking.m:334-345); the caller applies the
+pilot's quarter-turn rotation and the dual-bank combine to the sums.
 """
 
 from __future__ import annotations
@@ -33,567 +31,175 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-_TWO_PI = np.float32(2.0 * np.pi)
-
-CHANNEL_BLOCK = 8
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
+TILE = 512              # samples per inner-loop tile (power of two)
+NUM_WARPS = 4           # TILE / (32 * NUM_WARPS) = 4 samples per thread
+MAX_TILES_PER_CHUNK = 16
+MIN_PROGRAMS = 1056     # 8 programs per SM on a 132-SM H100
 
 
-def _rot_bb(bb_i, bb_q, rot: int):
-    """Quarter-turn carrier rotation applied to the baseband (commutes
-    with the real bilinear correlation; see _epoch_one_channel)."""
-    if rot == 0:
-        return bb_i, bb_q
-    if rot == 1:
-        return -bb_q, bb_i
-    if rot == 2:
-        return -bb_i, -bb_q
-    return bb_q, -bb_i
+def require_gpu(interpret: bool = False) -> None:
+    """The kernel is compiled for NVIDIA GPUs only; interpret mode (the
+    CPU tests) is the one exception, and it has to be asked for."""
+    if interpret:
+        return
+    platform = jax.devices()[0].platform
+    if platform != "gpu":
+        raise RuntimeError(
+            f"the correlator kernel runs on NVIDIA GPUs; this process "
+            f"runs on {platform!r}.  Use the XLA epoch "
+            f"(use_pallas=False) or interpret mode.")
 
 
-def _correlate_block(si, sq, wt, wp, alpha, alpha_p, remc, shi, slo, bsz,
-                     *, blk_pad: int, k: int, has_pilot: bool,
-                     pilot_rot: int, wp2=None, pilot2_rot: int = 2,
-                     pilot_w1: float = 1.0, pilot_w2: float = 0.0,
-                     interp_taps: bool = True):
-    """Shared kernel body: correlator sums for one cb-channel block.
+def geometry(blk: int, n_rows: int):
+    """Static launch geometry for a bank of ``n_rows`` channel rows whose
+    windows hold ``blk`` samples.
 
-    si/sq: (cb, blk_pad) int8 sample windows; wt/wp: (cb, wlen) int8
-    replica windows; scalars (cb, 1) f32.  Returns (cb, n_out) f32.
-    """
-    cb = si.shape[0]
-    si = si.astype(jnp.float32)
-    sq = sq.astype(jnp.float32)
-    # Factorized carrier synthesis: with n = 128*t + l,
-    #   e^{-j2π(remc + inc·n)} = u[t] · v[l],
-    #   u[t] = e^{j2π(remc + frac(128·inc)·t)},  v[l] = e^{j2π·frac(inc)·l}
-    # so the transcendentals drop from blk_pad evaluations per row to
-    # T + 128 (~67x fewer — sin/cos dominated the original kernel),
-    # and each sample costs one 6-op complex multiply instead.
-    # Phase error: each u-factor f32 phase product is bounded by
-    # blk_pad/128 cycles before the mod-1 reduction, so the error is
-    # ~(blk_pad/128)*2^-23 cycles — ~1e-5 cycles at blk_pad=18048 and
-    # growing linearly with the sampling rate.
-    T = blk_pad // 128
-    t_f = jax.lax.broadcasted_iota(jnp.int32, (1, T), 1).astype(
-        jnp.float32)
-    l_f = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1).astype(
-        jnp.float32)
-    pu = remc + shi * t_f                      # (cb, T) cycles
-    pu = (pu - jnp.floor(pu)) * _TWO_PI
-    pv = slo * l_f                             # (cb, 128) cycles
-    pv = (pv - jnp.floor(pv)) * _TWO_PI
-    ur = jnp.cos(pu).reshape(cb, T, 1)
-    ui = jnp.sin(pu).reshape(cb, T, 1)
-    vr = jnp.cos(pv).reshape(cb, 1, 128)
-    vi = jnp.sin(pv).reshape(cb, 1, 128)
-    cosw = (ur * vr - ui * vi).reshape(cb, blk_pad)
-    sinw = (ur * vi + ui * vr).reshape(cb, blk_pad)
-    n_f = jax.lax.broadcasted_iota(jnp.int32, (1, blk_pad),
-                                   1).astype(jnp.float32)
-    mask = (n_f < bsz).astype(jnp.float32)
-    bb_i = (si * cosw + sq * sinw) * mask
-    bb_q = (sq * cosw - si * sinw) * mask
-
-    def taps(w, al):
-        def repl(d):
-            a = w[:, d:d + blk_pad].astype(jnp.float32)
-            if not interp_taps:
-                return a             # nearest-sample (reference parity)
-            b = w[:, d + 1:d + 1 + blk_pad].astype(jnp.float32)
-            return a + al * (b - a)
-        return repl(0), repl(k), repl(2 * k)
-
-    early, prompt, late = taps(wt, alpha)
-
-    def s(x):
-        return jnp.sum(x, axis=1, keepdims=True)
-
-    cols = [s(early * bb_i), s(early * bb_q),
-            s(prompt * bb_i), s(prompt * bb_q),
-            s(late * bb_i), s(late * bb_q)]
-    z = jnp.zeros((cb, 1), jnp.float32)
-    if has_pilot:
-        # pilot carrier at j^rot vs data: 1 = quadrature
-        # (exp(-j(φ-π/2))·s = j·bb), 0 = time-multiplexed (L2C CL,
-        # GPS_L2C/include/tracking.m:317-324), 2 = -I (B1C BOC(6,1),
-        # WB_tracking.m:364-369), 3 = -Q
-        pe, pp, plate = taps(wp, alpha_p)
-        pb_i, pb_q = _rot_bb(bb_i, bb_q, pilot_rot)
-        pcols = [s(pe * pb_i), s(pe * pb_q),
-                 s(pp * pb_i), s(pp * pb_q),
-                 s(plate * pb_i), s(plate * pb_q)]
-        if wp2 is not None:
-            # composite QMBOC dual bank: both banks rotated onto the
-            # in-phase axis and amplitude-combined IN-KERNEL
-            # (WB_tracking.m:364-369); the output layout stays the
-            # single-pilot [C, 16]
-            p2e, p2p, p2l = taps(wp2, alpha_p)
-            qb_i, qb_q = _rot_bb(bb_i, bb_q, pilot2_rot)
-            w1 = jnp.float32(pilot_w1)
-            w2 = jnp.float32(pilot_w2)
-            p2cols = [s(p2e * qb_i), s(p2e * qb_q),
-                      s(p2p * qb_i), s(p2p * qb_q),
-                      s(p2l * qb_i), s(p2l * qb_q)]
-            pcols = [w1 * a + w2 * b for a, b in zip(pcols, p2cols)]
-        cols += pcols + [z, z, z, z]
-    else:
-        cols += [z, z]
-    return jnp.concatenate(cols, axis=1)
+    Returns (tiles_per_chunk, n_chunks, span): the grid is
+    (n_rows, n_chunks) and each program covers tiles_per_chunk tiles, so
+    the kernel reads up to ``span`` = n_chunks * tiles_per_chunk * TILE
+    samples past each window offset (masked beyond ``blk``).  Chunks
+    grow only while the grid keeps at least MIN_PROGRAMS programs."""
+    n_tiles = -(-blk // TILE)
+    tpc = 1
+    while (tpc * 2 <= min(MAX_TILES_PER_CHUNK, n_tiles)
+           and n_rows * -(-n_tiles // (tpc * 2)) >= MIN_PROGRAMS):
+        tpc *= 2
+    n_chunks = -(-n_tiles // tpc)
+    return tpc, n_chunks, n_chunks * tpc * TILE
 
 
-def vmem_path_fits(blk_pad: int, n_banks: int = 1) -> bool:
-    """Whether the VMEM-staged kernel's per-grid-step working set fits
-    VMEM.  ~8 B/channel-sample of fused carrier/baseband intermediates
-    plus ~5 B per replica bank (int8 windows + f32 tap temps), measured
-    from the compiler's scoped-vmem accounting (32.9 MB at cb=8,
-    blk=180096, 3 banks).  Long wideband epochs (B1C 10 ms at 18 Msps =
-    180k samples) exceed it — Mosaic's block tiling pins the channel
-    block at 8, so callers must fall back to the XLA epoch (the
-    in-kernel HBM fetch kernel, which streams 512-sample rows instead
-    of staging whole windows, remains the production path there)."""
-    per = 8 + 5 * n_banks
-    return CHANNEL_BLOCK * blk_pad * per <= 12 * 1024 * 1024
+def _taps(tab, row, start, mask, alpha, k, interp):
+    """E/P/L replica tiles of one table row (an index tuple) from flat
+    table offset ``start`` on."""
+    def load(o):
+        return plgpu.load(tab.at[row + (pl.ds(o, TILE),)], mask=mask,
+                          other=0).astype(jnp.float32)
+
+    out = []
+    for d in (0, k, 2 * k):
+        a = load(start + d)
+        if interp:
+            a = a + alpha * (load(start + d + 1) - a)
+        out.append(a)
+    return out
 
 
 @functools.lru_cache(maxsize=64)
-def _build_call(blk_pad: int, wlen: int, k: int, has_pilot: bool,
-                pilot_rot: int, interpret: bool,
-                has_pilot2: bool = False, pilot2_rot: int = 2,
-                pilot_w1: float = 1.0, pilot_w2: float = 0.0,
-                interp_taps: bool = True):
-    n_out = 16 if has_pilot else 8
+def _build_call(n_rows: int, n_tab: int, blk: int, k: int, n_pilot: int,
+                interp: bool, interpret: bool):
+    tpc, n_chunks, _ = geometry(blk, n_rows)
+    n_out = 6 * (1 + n_pilot)
 
-    def kernel(*refs):
-        wp2_r = None
-        if has_pilot2:
-            (alpha_r, alphap_r, remc_r, shi_r, slo_r, bsz_r,
-             si_r, sq_r, wt_r, wp_r, wp2_r, out_r) = refs
-        elif has_pilot:
-            (alpha_r, alphap_r, remc_r, shi_r, slo_r, bsz_r,
-             si_r, sq_r, wt_r, wp_r, out_r) = refs
-        else:
-            (alpha_r, remc_r, shi_r, slo_r, bsz_r,
-             si_r, sq_r, wt_r, out_r) = refs
-            alphap_r = wp_r = None
-        out_r[:] = _correlate_block(
-            si_r[:], sq_r[:], wt_r[:],
-            wp_r[:] if has_pilot else None,
-            alpha_r[:], alphap_r[:] if has_pilot else None,
-            remc_r[:], shi_r[:], slo_r[:], bsz_r[:],
-            blk_pad=blk_pad, k=k, has_pilot=has_pilot,
-            pilot_rot=pilot_rot,
-            wp2=wp2_r[:] if has_pilot2 else None,
-            pilot2_rot=pilot2_rot, pilot_w1=pilot_w1,
-            pilot_w2=pilot_w2, interp_taps=interp_taps)
+    def kernel(off_r, ts_r, ps_r, alpha_r, palpha_r, bsz_r, ur_r, ui_r,
+               vr_r, vi_r, si_r, sq_r, ct_r, *rest):
+        pt_r = rest[0] if n_pilot else None
+        out_r = rest[-1]
+        r = pl.program_id(0)
+        j = pl.program_id(1)
+        tr = jax.lax.rem(r, jnp.int32(n_tab))     # flat banks share tables
+        off = off_r[r]
+        ts = ts_r[r].astype(jnp.int32)
+        ps = ps_r[r].astype(jnp.int32)
+        alpha = alpha_r[r]
+        palpha = palpha_r[r]
+        bsz = bsz_r[r].astype(jnp.int32)
+        lanes = jax.lax.broadcasted_iota(jnp.int32, (TILE,), 0)
+        vr = vr_r[r, :]
+        vi = vi_r[r, :]
 
-    cb = CHANNEL_BLOCK
+        def body(t, acc):
+            g = j * tpc + t                       # tile index in window
+            base = g * TILE
+            mask = base + lanes < bsz
+            si = plgpu.load(si_r.at[pl.ds(off + base, TILE)],
+                            mask=mask, other=0).astype(jnp.float32)
+            sq = plgpu.load(sq_r.at[pl.ds(off + base, TILE)],
+                            mask=mask, other=0).astype(jnp.float32)
+            ur = ur_r[r, g]
+            ui = ui_r[r, g]
+            cw = ur * vr - ui * vi
+            sw = ur * vi + ui * vr
+            # e^{-j phase} · (I + jQ)
+            bi = si * cw + sq * sw
+            bq = sq * cw - si * sw
+            reps = _taps(ct_r, (tr,), ts + base, mask, alpha, k, interp)
+            if n_pilot == 1:
+                reps += _taps(pt_r, (tr,), ps + base, mask, palpha, k,
+                              interp)
+            for b in range(n_pilot if n_pilot == 2 else 0):
+                reps += _taps(pt_r, (tr, b), ps + base, mask, palpha, k,
+                              interp)
+            new = []
+            for i, rep in enumerate(reps):
+                new.append(acc[2 * i] + rep * bi)
+                new.append(acc[2 * i + 1] + rep * bq)
+            return tuple(new)
 
-    def vec():
-        return pl.BlockSpec((cb, 1), lambda i: (i, i * 0),
-                            memory_space=pltpu.VMEM)
+        zero = jnp.zeros((TILE,), jnp.float32)
+        acc = jax.lax.fori_loop(0, tpc, body, (zero,) * n_out)
+        for i in range(n_out):
+            out_r[i, r, j] = jnp.sum(acc[i])
 
-    def mat(w):
-        return pl.BlockSpec((cb, w), lambda i: (i, i * 0),
-                            memory_space=pltpu.VMEM)
-
-    def call(alpha, alpha_p, remc, shi, slo, bsz, si, sq, wt, wp=None,
-             wp2=None):
-        c = si.shape[0]
-        assert c % cb == 0, c
-        if has_pilot2:
-            in_specs = [vec()] * 6 + [mat(blk_pad), mat(blk_pad),
-                                      mat(wlen), mat(wlen), mat(wlen)]
-            args = [alpha, alpha_p, remc, shi, slo, bsz, si, sq, wt, wp,
-                    wp2]
-        elif has_pilot:
-            in_specs = [vec()] * 6 + [mat(blk_pad), mat(blk_pad),
-                                      mat(wlen), mat(wlen)]
-            args = [alpha, alpha_p, remc, shi, slo, bsz, si, sq, wt, wp]
-        else:
-            in_specs = [vec()] * 5 + [mat(blk_pad), mat(blk_pad),
-                                      mat(wlen)]
-            args = [alpha, remc, shi, slo, bsz, si, sq, wt]
-        return pl.pallas_call(
-            kernel,
-            grid=(c // cb,),
-            out_shape=jax.ShapeDtypeStruct((c, n_out), jnp.float32),
-            in_specs=in_specs,
-            out_specs=pl.BlockSpec((cb, n_out), lambda i: (i, i * 0),
-                                   memory_space=pltpu.VMEM),
-            interpret=interpret,
-        )(*args)
-
-    return call
+    return pl.pallas_call(
+        kernel,
+        out_shape=jax.ShapeDtypeStruct((n_out, n_rows, n_chunks),
+                                       jnp.float32),
+        grid=(n_rows, n_chunks),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=2),
+        interpret=interpret,
+        name="epoch_correlator",
+    )
 
 
-def correlate_bank(alpha, remc, shi, slo, bsz, si, sq, wt, wp=None,
-                   wp2=None, *, k: int, alpha_p=None,
-                   pilot_rot: int = 1, pilot2_rot: int = 2,
-                   pilot_w1: float = 1.0, pilot_w2: float = 0.0,
+def correlate_bank(sig_i, sig_q, code_tables, pilot_tables, off, tstart,
+                   pstart, alpha, palpha, bsz, carr_cycles, carr_step,
+                   *, blk: int, k: int, n_pilot: int = 0,
                    interp_taps: bool = True, interpret: bool = False):
-    """Correlator sums for a channel bank (operands pre-staged in VMEM).
+    """Raw correlator sums of one epoch for a bank of channel rows.
 
-    alpha/remc/shi/slo/bsz: [C, 1] f32 per-channel scalars — replica
-      interpolation fraction, carrier phase (cycles), 128·step and step
-      (cycles/sample, each mod 1 — the factorized-exponential split),
-      valid-sample count
-    si/sq: [C, blk_pad] int8 sample windows (blk_pad % 128 == 0)
-    wt/wp: [C, wlen] int8 replica windows (wlen % 128 == 0, covering
-      blk_pad + 2k + 1 from tap -k)
-    alpha_p: [C, 1] f32 pilot interpolation fraction (defaults to alpha;
-      differs for long pilots whose slice advances per epoch)
-    pilot_rot: pilot carrier phase in quarter turns vs data (1 =
-      quadrature, 0 = time-multiplexed L2C CL, 2 = -I B1C BOC(6,1))
-    Returns [C, 8] (or [C, 16] with pilot) f32:
-      iE qE iP qP iL qL [piE pqE piP pqP piL pqL] 0-pad.
+    sig_i/sig_q: [N + span] int8 (or int16) sample planes, zero-padded
+      at the end by ``span = geometry(blk, C)[2]`` so that every tile
+      read stays inside the arrays
+    code_tables: [R, L + pad] int8 replica tables; row c uses table row
+      c mod R (the flat time-parallel bank shares each channel's table
+      across its time blocks)
+    pilot_tables: [R, L + pad] (n_pilot=1) or [R, 2, L + pad] (n_pilot=2)
+    off: [C] int window offset into the planes (clamped by the caller to
+      [0, N - blk]); tstart/pstart: [C] int table window offsets of the
+      early tap (clamped to [0, L - blk - 2k - 1])
+    alpha/palpha: [C] f32 replica interpolation fractions
+    bsz: [C] valid samples in the window (<= blk)
+    carr_cycles/carr_step: [C] f64 carrier phase at the window start and
+      phase step per sample, both in cycles
+    Returns [C, 6 * (1 + n_pilot)] f32:
+      iE qE iP qP iL qL [ piE pqE piP pqP piL pqL [ p2iE ... p2qL ] ]
+    with the pilot sums taken against the unrotated baseband.
     """
-    blk_pad = si.shape[1]
-    wlen = wt.shape[1]
-    call = _build_call(blk_pad, wlen, int(k), wp is not None,
-                       int(pilot_rot), bool(interpret),
-                       wp2 is not None, int(pilot2_rot),
-                       float(pilot_w1), float(pilot_w2),
-                       bool(interp_taps))
-    if alpha_p is None:
-        alpha_p = alpha
-    return call(alpha, alpha_p, remc, shi, slo, bsz, si, sq, wt, wp, wp2)
-
-
-# --------------------------------------------------------------------------
-# In-kernel HBM window fetch (aligned DMA + exact in-kernel rotate)
-# --------------------------------------------------------------------------
-#
-# Mosaic only allows HBM slices whose offsets are provably aligned to the
-# memref tiling, so per-sample window offsets cannot be DMA'd directly.
-# The v2 design works entirely within those rules:
-#
-#  * the sample record and replica tables are stored as (rows, 4, 128)
-#    int8 — one (4, 128) int8 tile (512 samples) per leading index.  The
-#    leading dim is untiled, so DMA at ARBITRARY dynamic row offsets is
-#    legal; windows are fetched from the 512-sample-aligned start below
-#    the requested offset.
-#  * the samples are used UNROTATED: the 512-residual r moves into the
-#    validity mask (valid m in [r, r+bsz)) and the carrier phase
-#    (remc' = remc - inc*r, adjusted in f64 by the XLA caller).
-#  * the replica window absorbs the arbitrary alignment: its own flat
-#    offset residual rt in [0, 512) is applied in-kernel as an EXACT
-#    flat rotate — a dynamic lane roll + dynamic sublane rolls + a
-#    lane-boundary select (tpu.dynamic_rotate; verified on v5e).
-#
-# All index scalars are cast to int32: the package force-enables x64, so
-# Python-int/weak-typed indices would lower as i64, which Mosaic rejects.
-
-ALIGN = 512                     # samples per (4, 128) int8 record row
-
-
-def _shift_flat(x, d: int):
-    """Flat shift: y[j*128+l] = x[j*128+l+d] for static 0 <= d < 128.
-
-    x: (R, 128); valid for rows j with j+1 < R."""
-    if d == 0:
-        return x
-    # pltpu.roll validates static shifts as non-negative: use the
-    # positive modular equivalent of a backward roll
-    a = pltpu.roll(x, jnp.int32(128 - d), 1)
-    b = pltpu.roll(a, jnp.int32(x.shape[0] - 1), 0)
-    l = jax.lax.broadcasted_iota(jnp.int32, x.shape, 1)
-    return jnp.where(l < 128 - d, a, b)
-
-
-def _rotate_flat(x, rt):
-    """Flat rotate: y[j*128+l] = x[j*128+l+rt] for dynamic rt in [0, 512).
-
-    x: (R, 128) f32; valid for rows j with j + rt//128 + 1 < R."""
-    rl = jax.lax.rem(rt, jnp.int32(128))
-    rq = jax.lax.div(rt, jnp.int32(128))
-    nrow = jnp.int32(x.shape[0])
-    xr = pltpu.roll(x, jnp.int32(128) - rl, 1)   # lanes (dynamic)
-    xs = pltpu.roll(xr, nrow - rq, 0)            # rows (dynamic)
-    xs1 = pltpu.roll(xs, jnp.int32(x.shape[0] - 1), 0)  # rows + 1
-    l = jax.lax.broadcasted_iota(jnp.int32, x.shape, 1)
-    return jnp.where(l < 128 - rl, xs, xs1)
-
-
-def _correlate_rows(si, sq, wi, wpi, remc, shi, slo, rstart, bsz,
-                    alpha, alpha_p, *, rows: int, k: int,
-                    has_pilot: bool, pilot_rot: int, wp2i=None,
-                    pilot2_rot: int = 2, pilot_w1: float = 1.0,
-                    pilot_w2: float = 0.0, interp_taps: bool = True):
-    """Correlator sums for ONE channel in (rows, 128) window layout.
-
-    si/sq: (rows, 128) f32 sample window starting at the aligned offset;
-    wi/wpi: (rows+2+, 128) f32 replica windows ALREADY rotated so that
-    flat index m matches sample flat index m; the rest are f32/i32
-    scalars (from SMEM).  Returns a list of 6 (or 12) correlator sums.
-    """
-    # factorized carrier over the 2-D grid: n = 128 t + l natively maps
-    # to (sublane, lane) — no reshape needed (cf. _correlate_block)
-    t_f = jax.lax.broadcasted_iota(jnp.int32, (rows, 1), 0).astype(
-        jnp.float32)
-    l_f = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1).astype(
-        jnp.float32)
-    pu = remc + shi * t_f
-    pu = (pu - jnp.floor(pu)) * _TWO_PI
-    pv = slo * l_f
-    pv = (pv - jnp.floor(pv)) * _TWO_PI
-    ur, ui = jnp.cos(pu), jnp.sin(pu)
-    vr, vi = jnp.cos(pv), jnp.sin(pv)
-    cosw = ur * vr - ui * vi
-    sinw = ur * vi + ui * vr
-    n2d = (jax.lax.broadcasted_iota(jnp.int32, (rows, 128), 0) * 128
-           + jax.lax.broadcasted_iota(jnp.int32, (rows, 128), 1)
-           ).astype(jnp.float32)
-    mask = ((n2d >= rstart) & (n2d < rstart + bsz)).astype(jnp.float32)
-    bb_i = (si * cosw + sq * sinw) * mask
-    bb_q = (sq * cosw - si * sinw) * mask
-
-    def taps(w, al):
-        base = (w + al * (_shift_flat(w, 1) - w)) if interp_taps else w
-        return (base[:rows], _shift_flat(base, k)[:rows],
-                _shift_flat(base, 2 * k)[:rows])
-
-    def s(x):
-        return jnp.sum(x)
-
-    early, prompt, late = taps(wi, alpha)
-    sums = [s(early * bb_i), s(early * bb_q),
-            s(prompt * bb_i), s(prompt * bb_q),
-            s(late * bb_i), s(late * bb_q)]
-    if has_pilot:
-        pe, pp, plate = taps(wpi, alpha_p)
-        # pilot carrier at j^rot vs data (see _correlate_block)
-        pb_i, pb_q = _rot_bb(bb_i, bb_q, pilot_rot)
-        pcols = [s(pe * pb_i), s(pe * pb_q),
-                 s(pp * pb_i), s(pp * pb_q),
-                 s(plate * pb_i), s(plate * pb_q)]
-        if wp2i is not None:
-            # composite QMBOC dual bank combined in-kernel
-            # (WB_tracking.m:364-369; see _correlate_block)
-            p2e, p2p, p2l = taps(wp2i, alpha_p)
-            qb_i, qb_q = _rot_bb(bb_i, bb_q, pilot2_rot)
-            w1 = jnp.float32(pilot_w1)
-            w2 = jnp.float32(pilot_w2)
-            p2cols = [s(p2e * qb_i), s(p2e * qb_q),
-                      s(p2p * qb_i), s(p2p * qb_q),
-                      s(p2l * qb_i), s(p2l * qb_q)]
-            pcols = [w1 * a + w2 * b for a, b in zip(pcols, p2cols)]
-        sums += pcols
-    return sums
-
-
-def hbm_geometry(blk_pad: int, k: int):
-    """Static window geometry for the HBM-fetch kernel.
-
-    Returns (rows, tq_s, tq_w): compute rows of 128 samples, record rows
-    (of ALIGN=512 samples) DMA'd per sample window, and table rows DMA'd
-    per replica window.  The caller sizes record/table padding so any
-    clamped q stays within [0, total_rows - tq_*]."""
-    rows = blk_pad // 128 + ALIGN // 128
-    # replica reads flat m + 2k + 2 <= 128*(rows + 2); the rotate then
-    # needs +4 source rows (rt < 512) + 1 lane-carry row.  tq_w is kept
-    # EVEN so the rotate buffer has 4*tq_w % 8 == 0 rows — the sublane
-    # dynamic_rotate requires 8-row alignment
-    tq_w = (rows + 2 + 5 + 3) // 4 + 1
-    tq_w += tq_w % 2
-    tq_s = (rows + 3) // 4
-    return rows, tq_s, tq_w
-
-
-@functools.lru_cache(maxsize=64)
-def _build_call_hbm(blk_pad: int, k: int, has_pilot: bool,
-                    pilot_rot: int, interpret: bool,
-                    has_pilot2: bool = False, pilot2_rot: int = 2,
-                    pilot_w1: float = 1.0, pilot_w2: float = 0.0,
-                    interp_taps: bool = True):
-    assert blk_pad % 128 == 0
-    assert 0 < k <= 63, k         # tap flat-shifts assume 2k+1 < 128
-    n_out = 16 if has_pilot else 8
-    cb = CHANNEL_BLOCK
-    n_dma = (5 if has_pilot2 else 4) if has_pilot else 3
-    rows, tq_s, tq_w = hbm_geometry(blk_pad, k)
-    r_in = 4 * tq_w               # rotate working rows
-    n_pref = 13 if has_pilot else 10
-
-    def kernel(*refs):
-        wp2_r = wp2_s = None
-        if has_pilot2:
-            (q_r, wrow_r, qt_r, rt_r, qp_r, rp_r,
-             alpha_r, alphap_r, remc_r, shi_r, slo_r, bsz_r, rst_r,
-             sig_i_r, sig_q_r, wt_r, wp_r, wp2_r, out_r,
-             si_s, sq_s, wt_s, wp_s, wp2_s, sem) = refs
-        elif has_pilot:
-            (q_r, wrow_r, qt_r, rt_r, qp_r, rp_r,
-             alpha_r, alphap_r, remc_r, shi_r, slo_r, bsz_r, rst_r,
-             sig_i_r, sig_q_r, wt_r, wp_r, out_r,
-             si_s, sq_s, wt_s, wp_s, sem) = refs
-        else:
-            (q_r, wrow_r, qt_r, rt_r,
-             alpha_r, remc_r, shi_r, slo_r, bsz_r, rst_r,
-             sig_i_r, sig_q_r, wt_r, out_r,
-             si_s, sq_s, wt_s, sem) = refs
-            alphap_r = wp_r = wp_s = qp_r = rp_r = None
-        i = jnp.int32(pl.program_id(0))
-
-        def chan_dmas(c: int):
-            """Window copies for channel c of THIS grid step, into
-            channel-slot c % 3.  The pipeline keeps at most two
-            channels' copies outstanding ahead of the consumer —
-            launching a whole step's (or two steps') batches at once
-            overruns the DMA queue and deadlocks on hardware (measured
-            on v5e); two-ahead (<= 10 outstanding) hides the
-            per-channel DMA issue+completion latency behind compute."""
-            slot = jnp.int32(c % 3)
-            row = i * cb + jnp.int32(c)
-            qv = q_r[row].astype(jnp.int32)
-            out = [pltpu.make_async_copy(
-                       sig_i_r.at[pl.ds(qv, tq_s)],
-                       si_s.at[slot], sem.at[slot, jnp.int32(0)]),
-                   pltpu.make_async_copy(
-                       sig_q_r.at[pl.ds(qv, tq_s)],
-                       sq_s.at[slot], sem.at[slot, jnp.int32(1)])]
-            wr = wrow_r[row].astype(jnp.int32)
-            qtv = qt_r[row].astype(jnp.int32)
-            out.append(pltpu.make_async_copy(
-                wt_r.at[wr, pl.ds(qtv, tq_w)],
-                wt_s.at[slot], sem.at[slot, jnp.int32(2)]))
-            if has_pilot:
-                qpv = qp_r[row].astype(jnp.int32)
-                out.append(pltpu.make_async_copy(
-                    wp_r.at[wr, pl.ds(qpv, tq_w)],
-                    wp_s.at[slot], sem.at[slot, jnp.int32(3)]))
-                if has_pilot2:
-                    out.append(pltpu.make_async_copy(
-                        wp2_r.at[wr, pl.ds(qpv, tq_w)],
-                        wp2_s.at[slot], sem.at[slot, jnp.int32(4)]))
-            return out
-
-        for d in chan_dmas(0):
-            d.start()
-        for d in chan_dmas(1):
-            d.start()
-
-        for c in range(cb):
-            slot = c % 3
-            if c + 2 < cb:
-                for d in chan_dmas(c + 2):
-                    d.start()
-            for d in chan_dmas(c):
-                d.wait()
-            row = i * cb + jnp.int32(c)
-            si = si_s[slot].reshape(4 * tq_s, 128)[:rows].astype(
-                jnp.float32)
-            sq = sq_s[slot].reshape(4 * tq_s, 128)[:rows].astype(
-                jnp.float32)
-            rt = rt_r[row].astype(jnp.int32)
-            w = wt_s[slot].reshape(r_in, 128).astype(jnp.float32)
-            wi = _rotate_flat(w, rt)
-            wpi = wp2i = None
-            if has_pilot:
-                rp = rp_r[row].astype(jnp.int32)
-                wp_buf = wp_s[slot].reshape(r_in, 128).astype(
-                    jnp.float32)
-                wpi = _rotate_flat(wp_buf, rp)
-            if has_pilot2:
-                wp2_buf = wp2_s[slot].reshape(r_in, 128).astype(
-                    jnp.float32)
-                wp2i = _rotate_flat(wp2_buf, rp)
-            sums = _correlate_rows(
-                si, sq, wi, wpi,
-                remc_r[row], shi_r[row], slo_r[row], rst_r[row],
-                bsz_r[row], alpha_r[row],
-                alphap_r[row] if has_pilot else None,
-                rows=rows, k=k, has_pilot=has_pilot, pilot_rot=pilot_rot,
-                wp2i=wp2i, pilot2_rot=pilot2_rot,
-                pilot_w1=pilot_w1, pilot_w2=pilot_w2,
-                interp_taps=interp_taps)
-            sums = sums + [jnp.float32(0.0)] * (n_out - len(sums))
-            vals = jnp.concatenate([v.reshape(1, 1) for v in sums],
-                                   axis=1)
-            out_r[pl.ds(c, 1), :] = vals
-
-    hbm = pl.BlockSpec(memory_space=pl.ANY)
-
-    def call(q, wrow, qt, rt, qp, rp, alpha, alpha_p, remc, shi, slo,
-             bsz, rstart, sig_i3, sig_q3, wt4, wp4=None, wp24=None):
-        c = q.shape[0]
-        assert c % cb == 0, c
-        in_specs = [hbm] * (2 + n_dma - 2)
-        scratch = [pltpu.VMEM((3, tq_s, 4, 128), jnp.int8),
-                   pltpu.VMEM((3, tq_s, 4, 128), jnp.int8),
-                   pltpu.VMEM((3, tq_w, 4, 128), jnp.int8)]
-        if has_pilot:
-            scratch.append(pltpu.VMEM((3, tq_w, 4, 128), jnp.int8))
-            pref = [q, wrow, qt, rt, qp, rp,
-                    alpha, alpha_p, remc, shi, slo, bsz, rstart]
-            args = [sig_i3, sig_q3, wt4, wp4]
-            if has_pilot2:
-                scratch.append(pltpu.VMEM((3, tq_w, 4, 128), jnp.int8))
-                args.append(wp24)
-        else:
-            pref = [q, wrow, qt, rt,
-                    alpha, remc, shi, slo, bsz, rstart]
-            args = [sig_i3, sig_q3, wt4]
-        scratch.append(pltpu.SemaphoreType.DMA((3, n_dma)))
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=n_pref,
-            grid=(c // cb,),
-            in_specs=in_specs,
-            out_specs=pl.BlockSpec((cb, n_out), lambda i, *_: (i, i * 0),
-                                   memory_space=pltpu.VMEM),
-            scratch_shapes=scratch,
-        )
-        return pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((c, n_out), jnp.float32),
-            interpret=interpret,
-        )(*pref, *args)
-
-    return call
-
-
-def correlate_bank_hbm(q, wrow, qt, rt, alpha, remc, shi, slo, bsz,
-                       rstart, sig_i3, sig_q3, wt4, wp4=None, wp24=None,
-                       *, k: int, blk_pad: int, qp=None, rp=None,
-                       alpha_p=None, pilot_rot: int = 1,
-                       pilot2_rot: int = 2, pilot_w1: float = 1.0,
-                       pilot_w2: float = 0.0, interp_taps: bool = True,
-                       interpret: bool = False):
-    """Correlator sums with in-kernel aligned window fetch from HBM.
-
-    q: [C] i32 record row (ALIGN=512-sample unit) of each channel's
-      window: q = soff // 512 with soff clamped so q + tq_s stays in
-      the record
-    wrow: [C] i32 replica-table row per channel
-    qt/rt: [C] i32 table window row (512-unit) and flat residual in
-      [0, 512): for desired flat table offset o (= start - soff%512),
-      qt = clamp(o // 512), rt = o - 512 qt
-    qp/rp: same for the pilot table (defaults to qt/rt)
-    alpha/alpha_p/remc/shi/slo/bsz/rstart: [C] f32 per-channel scalars
-      (SMEM); rstart = soff mod 512 — the valid-sample mask starts
-      there, and the caller folds the same residual into remc
-    sig_i3/sig_q3: (rows, 4, 128) int8 record staying in HBM
-    wt4/wp4: (R, rows, 4, 128) int8 replica tables staying in HBM
-    Returns [C, 8] (or [C, 16] with pilot) f32 like correlate_bank.
-    The caller must size record/table row padding via ``hbm_geometry``.
-    Reference semantics: GPS/GPS_L1CA/include/tracking.m:280-300.
-    """
-    call = _build_call_hbm(int(blk_pad), int(k), wp4 is not None,
-                           int(pilot_rot), bool(interpret),
-                           wp24 is not None, int(pilot2_rot),
-                           float(pilot_w1), float(pilot_w2),
-                           bool(interp_taps))
-    if alpha_p is None:
-        alpha_p = alpha
-    if qp is None:
-        qp, rp = qt, rt
-    return call(q, wrow, qt, rt, qp, rp, alpha, alpha_p, remc, shi, slo,
-                bsz, rstart, sig_i3, sig_q3, wt4, wp4, wp24)
+    require_gpu(interpret)
+    n_rows = off.shape[0]
+    tpc, n_chunks, span = geometry(blk, n_rows)
+    n_tiles = n_chunks * tpc
+    # carrier factors from float64 phases: u per tile, v per lane
+    t0 = (jnp.arange(n_tiles, dtype=jnp.float64) * TILE)[None, :]
+    pu = carr_cycles[:, None] + carr_step[:, None] * t0
+    pu = (2.0 * jnp.pi * (pu - jnp.round(pu))).astype(jnp.float32)
+    lane = jnp.arange(TILE, dtype=jnp.float64)[None, :]
+    pv = carr_step[:, None] * lane
+    pv = (2.0 * jnp.pi * (pv - jnp.round(pv))).astype(jnp.float32)
+    idx = jnp.int64 if sig_i.shape[0] >= 2 ** 31 else jnp.int32
+    args = [off.astype(idx), tstart.astype(jnp.int32),
+            pstart.astype(jnp.int32), alpha.astype(jnp.float32),
+            palpha.astype(jnp.float32), bsz.astype(jnp.int32),
+            jnp.cos(pu), jnp.sin(pu), jnp.cos(pv), jnp.sin(pv),
+            sig_i, sig_q, code_tables]
+    if n_pilot:
+        args.append(pilot_tables)
+    call = _build_call(n_rows, code_tables.shape[0], int(blk), int(k),
+                       int(n_pilot), bool(interp_taps), bool(interpret))
+    partial = call(*args)                    # [n_out, C, n_chunks]
+    return jnp.sum(partial, axis=2).T

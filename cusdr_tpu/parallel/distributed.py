@@ -1,18 +1,21 @@
-"""Multi-host distributed runtime (ICI + DCN).
+"""Multi-host distributed runtime (NVLink within a host, the network
+between hosts).
 
 The reference is a single MATLAB process (SURVEY.md §2.4); scale-out past
 one host is new surface.  The model is JAX's standard multi-controller
 SPMD: every host runs the same program, `jax.distributed.initialize`
 joins them into one runtime, and `jax.devices()` becomes the GLOBAL
-device list.  Meshes built here put the channel axis ('ch') across hosts
-— channel-bank tracking needs no cross-channel collectives, so the only
-DCN traffic is the per-epoch PVT assembly — and the time-block axis
-('tb') within a host, so the ring state-handoff collective-permute of
-parallel/timeblocks.py rides ICI.
+device list.  The mesh follows the algorithm: the cards of one host are
+joined all to all by NVLink, so 'ch' and 'tb' may lie across them in any
+order.  Across hosts, the channel axis ('ch') goes first — channel-bank
+tracking needs no cross-channel collectives, so the only traffic between
+hosts is the per-epoch PVT assembly — and the time-block axis ('tb')
+stays within a host, where the ring state-handoff collective-permute of
+parallel/timeblocks.py rides NVLink.
 
 Data feeding follows the owner-computes pattern: each host constructs
 only its addressable shards (jax.make_array_from_callback in
-timeblocks._put), so IF sample blocks never cross DCN.
+timeblocks._put), so IF sample blocks never cross the network.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
     Arguments default to the CUSDR_COORDINATOR / CUSDR_NUM_PROCS /
     CUSDR_PROC_ID environment variables (or JAX's own cluster-detection
-    when none are set — TPU pods auto-detect).  Safe to call once per
+    when none are set; on a GPU host give all three explicitly, with a
+    coordinator such as localhost:<port>).  Safe to call once per
     process, before any device arrays are created.
     """
     kw = {}
@@ -58,9 +62,9 @@ def make_mesh_2d(n_ch: Optional[int] = None,
     """2-D (ch × tb) mesh over all GLOBAL devices.
 
     Default factorization: 'ch' spans processes (no collectives on the
-    channel axis → zero DCN traffic), 'tb' the devices within a process
-    (the ring handoff rides ICI).  Works single-process too, where it
-    falls back to n_ch = 1.
+    channel axis → no traffic between hosts), 'tb' the devices within a
+    process (the ring handoff rides NVLink).  Works single-process too,
+    where it falls back to n_ch = 1.
     """
     devs = np.asarray(jax.devices())
     if n_ch is None:

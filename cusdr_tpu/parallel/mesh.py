@@ -26,8 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..tracking.engine import (ChannelState, TrackParams,
-                               _epoch_one_channel)
+from ..tracking.engine import ChannelState, TrackParams
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "ch") -> Mesh:
@@ -53,8 +52,10 @@ def tracking_step_sharded(samples_iq, sb_start, code_tables, pilot_tables,
                           state: ChannelState, params: TrackParams,
                           n_epochs: int):
     """tracking.engine.track_superblock with the channel axis sharded by
-    argument placement (GSPMD partitions the vmapped epoch across the
-    mesh); delegates so the packed-output/Pallas paths stay in sync."""
+    argument placement (GSPMD partitions the vmapped XLA epoch across
+    the mesh; the GPU kernel's custom call is not partitioned, so GSPMD
+    gathers its operands); delegates so both correlator paths stay in
+    sync."""
     from ..tracking.engine import track_superblock
     return track_superblock(samples_iq, sb_start, code_tables,
                             pilot_tables, state, params, n_epochs)

@@ -75,8 +75,8 @@ def _fetch(x, mesh):
 def _ring_shift(states0, final):
     """Block k+1 restarts from block k's final state; block 0 keeps the
     true initial state.  Jitted so it runs as one SPMD program on sharded
-    (possibly multi-process) 'tb' axes — a collective-permute over
-    ICI/DCN when sharded."""
+    (possibly multi-process) 'tb' axes — a collective-permute between
+    devices when sharded."""
     return jax.tree.map(
         lambda i0, fin: jnp.concatenate([i0[:1], fin[:-1]], axis=0),
         states0, final)
@@ -92,12 +92,6 @@ def _track_blocks(samples_blocks, block_starts, block_ends, code_tables,
     byte) or [B, 2*S_blk] int8 interleaved; block_starts/block_ends: [B] i64 (absolute sample
     range of each block's buffer); states: leaves [B, C].
     """
-    import dataclasses
-    # vmapping a manual-DMA pallas kernel is unsupported; the vmapped
-    # block path stages windows in XLA (the flat path keeps the fast
-    # in-kernel fetch)
-    params = dataclasses.replace(params, fetch_in_kernel=False)
-
     def one(samples, start, end, st):
         return track_superblock(samples, start, code_tables, pilot_tables,
                                 st, params, n_epochs, end)
@@ -112,10 +106,11 @@ def _track_blocks_flat(samples_iq, code_tables, pilot_tables,
                        n_epochs: int, n_blocks: int):
     """Single-device fast path: the B concurrent blocks become ONE
     B·C-row channel bank over the full record — abs_sample already
-    positions every block, the in-kernel HBM window fetch (ops/
-    correlator.correlate_bank_hbm) reads straight from the record, and
-    no per-block sample buffers are materialized.  Requires the Pallas
-    fetch path (replica tables are shared across blocks by row modulo).
+    positions every block, the GPU correlator kernel (ops/correlator.py)
+    reads each window straight from the record and shares the replica
+    tables across blocks by row modulo, and no per-block sample buffers
+    are materialized.  The XLA epoch maps rows to tables one to one, so
+    it gets the tables tiled B times.
 
     samples_iq: [S] uint16 packed (preferred) or [2S] int8 full record;
     states
@@ -124,6 +119,11 @@ def _track_blocks_flat(samples_iq, code_tables, pilot_tables,
     """
     B = n_blocks
     C = states.abs_sample.shape[1]
+    if not (params.use_pallas and params.fast_code):
+        code_tables = jnp.tile(code_tables,
+                               (B,) + (1,) * (code_tables.ndim - 1))
+        pilot_tables = jnp.tile(pilot_tables,
+                                (B,) + (1,) * (pilot_tables.ndim - 1))
     flat = jax.tree.map(
         lambda x: x.reshape((B * C,) + x.shape[2:]), states)
     st, outs = track_superblock(samples_iq, jnp.int64(0), code_tables,
@@ -146,12 +146,9 @@ def _track_blocks_shardmap(mesh, sb_np, sb_start_np, sb_end_np,
     pseudo-record (its block buffers concatenated), exactly like the
     single-device flat path.
 
-    Replaces the vmapped per-block program of earlier rounds, which
-    (a) could not use the in-kernel HBM window fetch (manual-DMA Pallas
-    kernels are not vmappable) and (b) compiled the block body B times
-    (~14 min at B=40 on v5e).  Inside shard_map the body is unvmapped,
-    so the fused kernel's DMA path works per shard and the program
-    compiles once.
+    Inside shard_map the body is unvmapped, so each shard runs the
+    correlator kernel on its own flat bank and the program compiles
+    once (a vmapped per-block program compiles the block body B times).
 
     Block b of a shard's local buffer lives at pseudo-record offset
     b*blk_len; channel offsets are remapped by adjusting abs_sample
@@ -167,9 +164,6 @@ def _track_blocks_shardmap(mesh, sb_np, sb_start_np, sb_end_np,
         lambda x: P(*(("tb", ch_ax) + (None,) * (x.ndim - 2))),
         states0_np)
     tab_spec = P(*((ch_ax,) + (None,) * (code_tables.ndim - 1)))
-    # NOTE: unlike _track_blocks, this path deliberately KEEPS
-    # params.fetch_in_kernel — inside shard_map the body is unvmapped,
-    # so the manual-DMA Pallas fetch is legal per shard.
 
     @partial(shard_map, mesh=mesh,
              in_specs=(P("tb", None), P("tb"), P("tb"), tab_spec,
@@ -181,9 +175,9 @@ def _track_blocks_shardmap(mesh, sb_np, sb_start_np, sb_end_np,
         c_loc = st.carr_freq.shape[1]
         rec = sb.reshape(b_loc * sb.shape[1])    # per-shard pseudo-record
         if not (params.use_pallas and params.fast_code):
-            # XLA fallback vmaps rows against tables 1:1 — tile the
-            # c_loc-row tables to the b_loc*c_loc flat rows (the Pallas
-            # fetch path instead shares tables by row modulo)
+            # the XLA epoch vmaps rows against tables 1:1 — tile the
+            # c_loc-row tables to the b_loc*c_loc flat rows (the kernel
+            # instead shares tables by row modulo)
             ct = jnp.tile(ct, (b_loc,) + (1,) * (ct.ndim - 1))
             pt = jnp.tile(pt, (b_loc,) + (1,) * (pt.ndim - 1))
         # pseudo-record offset of each local block
@@ -301,13 +295,10 @@ def track_time_parallel(cfg, sig: SignalDef, samples_iq: np.ndarray,
 
     states0, starts = predict_block_states(channels, cfg, sig, n_blocks,
                                            epochs_per_block)
-    # single-device Pallas fast path: all blocks as ONE flat channel
-    # bank over the full record, in-kernel HBM window fetch — no
-    # per-block sample buffers
+    # single-device kernel path: all blocks as ONE flat channel bank
+    # over the full record — no per-block sample buffers
     samples_iq = np.ascontiguousarray(samples_iq)
-    use_flat = (mesh is None and params.use_pallas
-                and params.fetch_in_kernel
-                and samples_iq.dtype == np.int8)
+    use_flat = mesh is None and params.use_pallas
     if samples_iq.dtype == np.int8:
         # packed uint16: free host deinterleave (engine docstring);
         # eps = buffer elements per complex sample
@@ -361,9 +352,7 @@ def track_time_parallel(cfg, sig: SignalDef, samples_iq: np.ndarray,
 
     if mesh is not None:
         # sharded path: shard_map over 'tb' — each shard runs its local
-        # blocks as one flat bank over a per-shard pseudo-record (the
-        # vmapped per-block program of earlier rounds compiled the body
-        # B times and excluded the in-kernel window fetch)
+        # blocks as one flat bank over a per-shard pseudo-record
         states, final, outs = _track_blocks_shardmap(
             mesh, sb, sb_start, sb_end, ctabs, ptabs, states, params,
             epochs_per_block, handoff_iters, blk_len)

@@ -10,9 +10,14 @@ from __future__ import annotations
 
 import numpy as np
 
-import matplotlib
-matplotlib.use("Agg")
-import matplotlib.pyplot as plt  # noqa: E402
+
+def _plt():
+    """matplotlib.pyplot on the Agg backend, imported on first use so the
+    text-only show_channel_status needs no matplotlib."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    return plt
 
 
 def probe_data(samples: np.ndarray, cfg, max_ms: float = 10.0):
@@ -21,6 +26,7 @@ def probe_data(samples: np.ndarray, cfg, max_ms: float = 10.0):
 
     samples: complex (I/Q) or real IF samples.
     """
+    plt = _plt()
     fs = cfg.sampling_freq
     n = min(len(samples), int(fs * max_ms * 1e-3))
     x = np.asarray(samples[:n])
@@ -73,6 +79,7 @@ def probe_data(samples: np.ndarray, cfg, max_ms: float = 10.0):
 def plot_acquisition(acq_result):
     """Bar plot of the acquisition metric per PRN
     (plotAcquisition.m:41)."""
+    plt = _plt()
     fig, ax = plt.subplots(figsize=(10, 4))
     prns = acq_result.prns
     colors = ["tab:green" if d else "tab:gray"
@@ -89,6 +96,7 @@ def plot_acquisition(acq_result):
 def plot_tracking(track_res, ch: int, cfg):
     """Per-channel tracking diagnostics (plotTracking.m): discriminators,
     prompt I/Q scatter, correlator envelopes, C/No."""
+    plt = _plt()
     fig, axes = plt.subplots(3, 2, figsize=(12, 9))
     ip, qp = track_res.i_p[ch], track_res.q_p[ch]
     t = np.arange(len(ip))
@@ -120,6 +128,7 @@ def plot_tracking(track_res, ch: int, cfg):
 
 def plot_navigation(nav, true_enu=None):
     """E/N/U scatter + coordinate time series (plotNavigation.m)."""
+    plt = _plt()
     fig, axes = plt.subplots(1, 2, figsize=(12, 5))
     E = np.asarray(nav.E)
     N = np.asarray(nav.N)
@@ -147,6 +156,7 @@ def plot_navigation(nav, true_enu=None):
 
 def sky_plot(nav, prns):
     """Polar az/el track of each satellite (skyPlot.m)."""
+    plt = _plt()
     fig = plt.figure(figsize=(7, 7))
     ax = fig.add_subplot(111, projection="polar")
     ax.set_theta_zero_location("N")

@@ -33,7 +33,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .engine import (ChannelState, TrackParams, TrackResults,
+from .engine import (ChannelState, TrackResults,
                      _finish_bank, _prepare_bank, build_element_tables,
                      build_replica_tables, init_channel_state,
                      make_track_params)
@@ -59,11 +59,10 @@ def track_superblock_multi(banks, params_list, strides, n_hyper: int):
     (static, = hyper_period / bank code period).
     Returns tuple of (new_state, TrackOutputs [n_hyper*stride, C]).
     """
-    prepped = [_prepare_bank(b.samples, b.sb_start, b.code_tables,
-                             b.pilot_tables, b.state, p, b.end_sample)
-               for b, p in zip(banks, params_list)]
-    states0 = tuple(pr[0] for pr in prepped)
-    steps = [pr[1] for pr in prepped]
+    steps = [_prepare_bank(b.samples, b.sb_start, b.code_tables,
+                           b.pilot_tables, b.state, p, b.end_sample)
+             for b, p in zip(banks, params_list)]
+    states0 = tuple(b.state for b in banks)
 
     def body(states, _):
         new_states, outs = [], []
@@ -80,11 +79,11 @@ def track_superblock_multi(banks, params_list, strides, n_hyper: int):
 
     final, scanned = jax.lax.scan(body, states0, None, length=n_hyper)
     results = []
-    for (st, (o32, o64, oi), pr) in zip(final, scanned, prepped):
+    for st, (o32, o64, oi) in zip(final, scanned):
         # [n_hyper, stride, G, C] -> [n_hyper*stride, G, C]
         flat = tuple(x.reshape((-1,) + x.shape[2:])
                      for x in (o32, o64, oi))
-        results.append(_finish_bank(st, flat, pr[2], pr[3]))
+        results.append(_finish_bank(st, flat))
     return tuple(results)
 
 

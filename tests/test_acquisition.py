@@ -120,3 +120,36 @@ def test_coherent_blocks():
         <= cfg.fine_search_step
     # coherent gain: metric improves over the same total data
     assert res4.peak_metric[i] > res1.peak_metric[i]
+
+
+def test_fine_kernel_matches_f64_reference():
+    """The fine-frequency search, whose hypothesis combine is a matrix
+    product pinned to full f32 precision, against the float64
+    reference (acquisition/reference.py)."""
+    import jax.numpy as jnp
+
+    from cusdr_tpu.acquisition import pcps
+    from cusdr_tpu.acquisition.reference import fine_inputs, fine_powers_f64
+    from cusdr_tpu.tracking.reference import PARITY_TOL, parity_error
+
+    a = fine_inputs(2.048e6)
+    ref, norms = fine_powers_f64(*a)
+    got = np.asarray(pcps._fine_kernel(*map(jnp.asarray, a[:5]), a[5]))
+    assert np.argmax(got) == np.argmax(ref)
+    assert parity_error(got[:, None], ref[:, None], norms) < PARITY_TOL
+
+
+def test_pilot_phase_corr_matches_f64_reference():
+    import jax.numpy as jnp
+
+    from cusdr_tpu.acquisition import pcps
+    from cusdr_tpu.acquisition.reference import (pilot_inputs,
+                                                 pilot_phase_corr_f64)
+    from cusdr_tpu.tracking.reference import PARITY_TOL, parity_error
+
+    b = pilot_inputs(2.048e6)
+    ref, norms = pilot_phase_corr_f64(*b)
+    got = np.asarray(pcps._pilot_phase_corr(*map(jnp.asarray, b[:5]),
+                                            b[5]))
+    assert got.shape == ref.shape == (4, 75)
+    assert parity_error(got, ref, norms) < PARITY_TOL

@@ -181,3 +181,25 @@ def test_fine_stage_clamps_to_short_record():
         acq = acquire(cfg, sig, samples)
     assert acq.detected[0]
     assert abs(acq.carr_freq[0] - (7000.0 - 900.0)) < 250.0
+
+
+def test_cli_no_plots_imports_no_matplotlib(scene, tmp_path):
+    """`run --no-plots` needs nothing beyond numpy, scipy and JAX: the
+    plotting module loads matplotlib only inside its plot functions."""
+    cfg, sig, sv, samples = scene
+    f = tmp_path / "scene.bin"
+    quantize_iq_int8(samples).tofile(f)
+    argv = ["run", "--signal", "gps_l1ca", "--file", str(f),
+            "--fs", "2048000", "--if-freq", "7000", "--ms", "200",
+            "--out", str(tmp_path / "out"), "--no-plots",
+            "--prns", f"{PRN},{PRN + 4}", "--acq-threshold", "2.5"]
+    code = ("import sys\n"
+            "from cusdr_tpu.__main__ import main\n"
+            f"rc = main({argv!r})\n"
+            "print('RC', rc, 'matplotlib' in sys.modules)\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=900)
+    assert r.returncode == 0, r.stderr[-2000:]
+    rc, mpl = r.stdout.splitlines()[-1].split()[1:]
+    assert rc in ("0", "1")
+    assert mpl == "False"

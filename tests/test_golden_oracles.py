@@ -123,45 +123,47 @@ def test_cart2utm_literal_oracles():
 
 
 def test_correlator_epoch_first_principles():
-    """One fused-correlator epoch vs a direct double-precision loop over
-    the definition (tracking.m:280-300): carrier wipe-off at
-    remc + inc*n cycles, linear replica interpolation at alpha, taps at
-    0/k/2k, valid-sample mask."""
+    """One fused-correlator epoch (the GPU kernel, interpreted) vs a
+    direct double-precision loop over the definition (tracking.m:280-
+    300): carrier wipe-off at remc + inc*n cycles, linear replica
+    interpolation at alpha, taps at 0/k/2k, valid-sample mask, window
+    offsets into the record and the tables."""
     import jax.numpy as jnp
-    from cusdr_tpu.ops.correlator import correlate_bank
+    from cusdr_tpu.ops.correlator import correlate_bank, geometry
 
-    C, blk_pad, k = 8, 256, 2
-    wlen = 384
+    C, blk, k = 5, 1500, 2
+    n_rec, n_tab = 6000, blk + 2 * k + 1 + 300
     rng = np.random.default_rng(11)
-    si = rng.integers(-16, 16, (C, blk_pad)).astype(np.int8)
-    sq = rng.integers(-16, 16, (C, blk_pad)).astype(np.int8)
-    wt = rng.integers(-1, 2, (C, wlen)).astype(np.int8)
+    si = rng.integers(-16, 16, n_rec).astype(np.int8)
+    sq = rng.integers(-16, 16, n_rec).astype(np.int8)
+    wt = rng.integers(-1, 2, (C, n_tab)).astype(np.int8)
+    off = rng.integers(0, n_rec - blk, C)
+    tstart = rng.integers(0, n_tab - blk - 2 * k - 1, C)
     alpha = rng.random(C).astype(np.float32)
-    remc = rng.random(C).astype(np.float32)
-    inc = (rng.random(C) * 0.02).astype(np.float32)
-    shi = np.mod(inc * 128.0, 1.0).astype(np.float32)
-    slo = np.mod(inc, 1.0).astype(np.float32)
-    bsz = np.full(C, 200.0, np.float32)
+    remc = rng.random(C)
+    inc = rng.random(C) * 0.02
+    bsz = rng.integers(blk - 300, blk + 1, C)
 
-    col = lambda x: jnp.asarray(x)[:, None]
+    pad = geometry(blk, C)[2]
+    zp = lambda x: jnp.pad(jnp.asarray(x), [(0, 0)] * (x.ndim - 1)
+                           + [(0, pad)])
     out = np.asarray(correlate_bank(
-        col(alpha), col(remc), col(shi), col(slo), col(bsz),
-        jnp.asarray(si), jnp.asarray(sq), jnp.asarray(wt),
-        k=k, interpret=True))
+        zp(si), zp(sq), zp(wt), None, jnp.asarray(off),
+        jnp.asarray(tstart), jnp.asarray(tstart), jnp.asarray(alpha),
+        jnp.asarray(alpha), jnp.asarray(bsz), jnp.asarray(remc),
+        jnp.asarray(inc), blk=blk, k=k, interpret=True))
+    assert out.shape == (C, 6)
 
     for c in range(C):
-        n = np.arange(200)
-        # the kernel factorizes the phase as remc + shi*t + slo*l with
-        # n = 128 t + l; reproduce that exact phase decomposition
-        t_idx, l_idx = n // 128, n % 128
-        ph = 2 * np.pi * (np.mod(remc[c] + shi[c] * t_idx, 1.0)
-                          + np.mod(slo[c] * l_idx, 1.0))
-        bb = (si[c, :200] + 1j * sq[c, :200]) * np.exp(-1j * ph)
-        w = wt[c].astype(np.float64)
+        n = np.arange(bsz[c])
+        ph = 2 * np.pi * (remc[c] + inc[c] * n)
+        s = si[off[c] + n] + 1j * sq[off[c] + n].astype(np.float64)
+        bb = s * np.exp(-1j * ph)
+        w = wt[c, tstart[c]:].astype(np.float64)
         for tap, d in enumerate((0, k, 2 * k)):
-            repl = w[n + d] + alpha[c] * (w[n + d + 1] - w[n + d])
+            repl = w[n + d] + float(alpha[c]) * (w[n + d + 1] - w[n + d])
             z = (repl * bb).sum()
             assert out[c, 2 * tap] == pytest.approx(
-                z.real, abs=2e-2 + abs(z.real) * 1e-5)
+                z.real, abs=1e-2 + abs(z.real) * 1e-5)
             assert out[c, 2 * tap + 1] == pytest.approx(
-                z.imag, abs=2e-2 + abs(z.imag) * 1e-5)
+                z.imag, abs=1e-2 + abs(z.imag) * 1e-5)

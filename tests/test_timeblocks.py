@@ -119,8 +119,9 @@ def test_single_handoff_converged_blocks(scene):
 
 def test_flat_path_matches_block_path(scene):
     """The single-device flat formulation (one B*C-row bank over the full
-    record, in-kernel HBM window fetch) must reproduce the per-block
-    vmapped path's trajectories (interpret-mode Pallas on CPU)."""
+    record, the GPU correlator kernel reading windows straight from it)
+    must reproduce the per-block vmapped XLA path's trajectories
+    (interpret-mode kernel on CPU)."""
     import dataclasses
 
     import jax.numpy as jnp
@@ -141,7 +142,6 @@ def test_flat_path_matches_block_path(scene):
     n_blocks, epb = 2, 20
     params = make_track_params(cfg, sig)
     params_pl = dataclasses.replace(params, use_pallas=True,
-                                    fetch_in_kernel=True,
                                     pallas_interpret=True)
     dops = [c[1] - cfg.if_freq for c in chans]
     ct, pt = build_replica_tables(cfg, sig, params, chans, dops)

@@ -102,8 +102,8 @@ def test_offsets_past_int32_range():
     record at 18.6 Msps) must not wrap — the engine carries abs_sample
     as int64 and every window-offset computation must stay 64-bit
     (ADVICE r3 #1).  Same scene tracked at sb_start=0 and at
-    sb_start=2**31+1e6 must produce identical correlators on all three
-    paths (XLA, Pallas VMEM-staged, Pallas in-kernel HBM fetch)."""
+    sb_start=2**31+1e6 must produce identical correlators on both
+    paths (XLA epoch, GPU correlator kernel interpreted)."""
     import dataclasses
 
     import jax.numpy as jnp
@@ -133,12 +133,8 @@ def test_offsets_past_int32_range():
 
     variants = {
         "xla": params,
-        "vmem": dataclasses.replace(params, use_pallas=True,
-                                    fetch_in_kernel=False,
-                                    pallas_interpret=True),
-        "hbm": dataclasses.replace(params, use_pallas=True,
-                                   fetch_in_kernel=True,
-                                   pallas_interpret=True),
+        "kernel": dataclasses.replace(params, use_pallas=True,
+                                      pallas_interpret=True),
     }
     for name, p in variants.items():
         ref_st, ref = track_superblock(sd, jnp.int64(0), ctd, ptd,

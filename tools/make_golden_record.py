@@ -7,13 +7,17 @@ IF, N seconds, a geometrically consistent multi-SV scene with LNAV
 ephemerides — the synthetic stand-in for the reference's recorded data
 sets (README.md:11-13), used for the on-hardware end-to-end regression:
 
-    python tools/make_golden_record.py --out /tmp/l1_golden --sec 61
-    python -m cusdr_tpu run --signal gps_l1ca --file /tmp/l1_golden.bin \
-        --time-blocks 40 --out /tmp/l1_out
+    python tools/make_golden_record.py --out .cache/l1_golden --sec 61
+    python -m cusdr_tpu run --signal gps_l1ca --file .cache/l1_golden.bin \
+        --time-blocks 40 --out .cache/l1_out
+
+The record is synthesized in one worker process per CPU core
+(io/synth.synthesize_iq_int8).
 """
 
 import argparse
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -25,7 +29,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="/tmp/l1_golden")
+    ap.add_argument("--out", default=".cache/l1_golden")
     ap.add_argument("--sec", type=float, default=61.0)
     ap.add_argument("--fs", type=float, default=18e6)
     ap.add_argument("--if-freq", type=float, default=20e3)
@@ -36,7 +40,7 @@ def main():
 
     from cusdr_tpu import get_config
     from cusdr_tpu.io.scenario import make_gps_scenario
-    from cusdr_tpu.io.synth import quantize_iq_int8, synthesize_if
+    from cusdr_tpu.io.synth import synthesize_iq_int8
     from cusdr_tpu.signals.defs import get_signal
 
     cfg = get_config("gps_l1ca", sampling_freq=args.fs,
@@ -48,11 +52,10 @@ def main():
     num_ms = int(args.sec * 1000.0) + 500
     print(f"synthesizing {num_ms} ms at {args.fs/1e6:.1f} Msps, "
           f"{args.n_svs} SVs...", flush=True)
-    samples = synthesize_if(cfg, sig, scn.svs, num_ms=num_ms,
-                            seed=args.seed)
-    iq = quantize_iq_int8(samples)
-    del samples
+    iq = synthesize_iq_int8(cfg, sig, scn.svs, num_ms=num_ms,
+                            seed=args.seed, workers=os.cpu_count() or 1)
     out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
     iq.tofile(str(out) + ".bin")
     truth = {
         "rx_ecef": [float(x) for x in scn.rx_ecef],
